@@ -90,7 +90,7 @@ def projection_residuals_grid(
     onehot = grid.anchor_onehot(dtype)  # [F, W+1]
 
     # Gather anchor quantities per feature slot via one-hot contraction (no
-    # dynamic gathers on TPU).
+    # dynamic gathers).
     p_i = onehot @ state.p  # [F, 3]
     q_i = onehot @ state.q  # [F, 4] (exact: one-hot row selects a quat)
     pts_i = jnp.einsum("fw,fwc->fc", onehot, grid.bearing)

@@ -11,12 +11,13 @@ Mirrors MarginalizationInfo::marginalize
   * MARGIN_SECOND_NEW — only the old prior participates; drop pose[W-1]
     (the discarded second-newest frame).
 
-TPU-native differences: static full-layout shapes (dropped blocks become
-zero columns, no index bookkeeping); the depth block is eliminated
+Differences from the reference: static full-layout shapes (dropped blocks
+become zero columns, no index bookkeeping); the depth block is eliminated
 analytically (it is diagonal) before the small dense elimination; the whole
-routine is one jittable function. The host driver runs it on the CPU backend
-in f64 — it is tiny (D=172) and precision-critical, the classic case for
-host offload (SURVEY.md §7 hard part #1).
+routine is one jittable function. The estimator runs the QR variants below
+(``marginalize_old_qr`` / ``marginalize_second_new_qr``) as its own jitted
+program on the default device, in the solver's dtype; the eigh variants
+here are the f64 reference the tests compare against.
 """
 
 from __future__ import annotations
@@ -179,7 +180,7 @@ def marginalize_old(
 
 
 # --------------------------------------------------------------------------
-# Square-root (QR) marginalization — the production TPU path.
+# Square-root (QR) marginalization — the production path.
 #
 # The eigh-based functions above mirror the reference's H-space Schur
 # elimination; they are precision-hungry because forming H = JᵀJ squares the

@@ -7,7 +7,7 @@ between the feature's anchor frame and relo_Pose; after the solve the
 jointly-refined relo_Pose yields relo_relative_t/q/yaw (double2vector,
 estimator.cpp:605-624).
 
-TPU design: the solve's local layout is extended by ONE 6-dim block (the
+Design: the solve's local layout is extended by ONE 6-dim block (the
 loop pose) to D+6; the relo rows are linearized with the same forward-mode
 machinery as the window projection rows, and the augmented system runs
 through the shared lm_loop. This is a SEPARATE jitted program from the

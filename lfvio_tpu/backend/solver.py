@@ -1,7 +1,7 @@
 """Sliding-window bundle-adjustment solver (dense Schur + Levenberg-Marquardt).
 
 Replaces the reference's Ceres DENSE_SCHUR/DOGLEG solve
-(estimator.cpp:810-825) with a TPU-shaped pipeline:
+(estimator.cpp:810-825) with a batched, static-shape pipeline:
 
   1. Per-factor Jacobians by *forward-mode autodiff on the tangent
      perturbation*, vmapped over the dense [F, W+1] observation grid — the
@@ -10,7 +10,7 @@ Replaces the reference's Ceres DENSE_SCHUR/DOGLEG solve
      (no scatters): H_pp [D,D], H_pl [D,F], diagonal H_ll [F], with
      D = 15*(W+1)+7 = 172 local dims.
   3. Schur elimination of the inverse-depth block (diagonal), one dense
-     Cholesky solve of the 172×172 reduced system — MXU-friendly sizes.
+     Cholesky solve of the 172×172 reduced system.
   4. Levenberg-Marquardt with accept/reject inside a lax.scan, capped at the
      reference's 8 iterations.
 

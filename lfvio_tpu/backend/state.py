@@ -1,7 +1,7 @@
 """Static-shape device state for the sliding-window estimator.
 
 The reference keeps per-feature C++ lists (`list<FeaturePerId>`,
-feature_manager.h:18-71) and Ceres parameter blocks. The TPU design replaces
+feature_manager.h:18-71) and Ceres parameter blocks. This design replaces
 both with fixed-slot arrays + validity masks (SURVEY.md §7 hard part #2):
 
   * ``WindowState`` — all optimization variables for the 11-frame window.

@@ -6,7 +6,7 @@ feature, stack the two DLT rows per observing frame relative to the anchor
 camera and take the null vector; depth is the *ray* depth
 ⟨X, bearing_anchor⟩ (valid on the negative half-plane).
 
-TPU formulation: all F features solved simultaneously — masked rows
+Formulation: all F features solved simultaneously — masked rows
 contribute nothing to AᵀA, and the null space comes from a batched 4×4
 symmetric eigendecomposition instead of per-feature SVDs.
 """

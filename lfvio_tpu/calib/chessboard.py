@@ -6,7 +6,7 @@ grown-quad detection): detect the inner corners of a rows×cols chessboard
 and return them in row-major board order for the calibration solvers
 (calib/intrinsic.py).
 
-TPU-style formulation instead of quad growing:
+Batched on-device formulation instead of quad growing:
 
   1. X-corner (saddle) response on device: corners of a chessboard are
      saddle points of the intensity surface, so −det(Hessian) is large and

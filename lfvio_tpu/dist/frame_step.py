@@ -8,13 +8,13 @@ a device mesh:
     work per device beats idling n-1 devices while one integrates).
   * Multi-view triangulation: feature-sharded (embarrassingly parallel).
   * Sliding-window LM BA: feature-sharded normal equations, pose system
-    psum'd over ICI, redundant 172×172 solve (dist/sharding.py).
+    psum'd over the mesh, redundant 172×172 solve (dist/sharding.py).
   * MARGIN_OLD marginalization: feature-sharded TSQR (dist/marginalize.py);
     MARGIN_SECOND_NEW touches only the (replicated) prior.
 
-This is the program `__graft_entry__.dryrun_multichip` compiles and runs,
-and the subject of SCALING.md's measurements. The reference has no
-distributed runtime (SURVEY §2.5 north star).
+This is the program `chip_smoke.py --four` runs on a 4-card mesh against
+the single-card solve. The reference has no distributed runtime (SURVEY
+§2.5 north star).
 """
 
 from __future__ import annotations
@@ -25,17 +25,7 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
-try:  # jax >= 0.8: top-level shard_map (new-style, no check_rep kwarg)
-    from jax import shard_map as _new_shard_map
-
-    def shard_map(f=None, **kw):  # adapt legacy check_rep= callers
-        if kw.pop("check_rep", None) is False:
-            kw["check_vma"] = False  # the new-style equivalent
-        if f is None:
-            return lambda g: _new_shard_map(g, **kw)
-        return _new_shard_map(f, **kw)
-except ImportError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from ..backend.state import WindowState, FeatureGrid, PriorFactor, SolverConfig
 from ..backend.triangulate import triangulate_grid
@@ -60,7 +50,7 @@ def triangulate_sharded(mesh: Mesh, state, grid, has_depth, axis: str = "f"):
         shard_map, mesh=mesh,
         in_specs=(state_specs, grid_specs, P(axis)),
         out_specs=P(axis),
-        check_rep=False,
+        check_vma=False,
     )
     def run(s, g, h):
         return triangulate_grid(s, g, h)
@@ -124,8 +114,7 @@ def vio_frame_step_sharded(
 
     The program is jitted ONCE per (mesh, cfg, noise, marg_old, g_norm)
     configuration and cached — repeat calls reuse the compiled executable
-    (without this, every call re-traced its shard_maps: ~140 s/step on the
-    CPU mesh; with it, milliseconds)."""
+    (without this, every call re-traces its shard_maps)."""
     key = (mesh, imu_noise, cfg, float(g_norm), bool(marg_old), axis)
     step = _JIT_CACHE.get(key)
     if step is None:

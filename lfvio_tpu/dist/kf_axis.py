@@ -1,14 +1,14 @@
-"""Multi-host keyframe-axis (trajectory-segment) sharded bundle adjustment.
+"""Keyframe-axis (trajectory-segment) sharded bundle adjustment.
 
-The feature axis (dist/sharding.py) saturates inside one host (SCALING.md
-§4: the replicated per-iteration work bounds strong scaling of a single
-window). The SECOND scaling axis shards the TRAJECTORY: a 2-D mesh
-``Mesh(devices.reshape(hosts, chips), ("kf", "f"))`` where each ``kf`` row
+The feature axis (dist/sharding.py) shards one window, whose replicated
+per-iteration work bounds its strong scaling. The SECOND scaling axis shards
+the TRAJECTORY: a 2-D mesh ``Mesh(devices.reshape(n_kf, n_f), ("kf", "f"))``
+where each ``kf`` row
 owns a contiguous keyframe SEGMENT — its own window of states, its own
 landmark block (features anchored and observed inside the segment), its own
 square-root prior — and only segment-BOUNDARY keyframes couple across rows.
 
-Structure of the computation (SCALING.md §5; the reference's absent
+Structure of the computation (SCALING.md §2; the reference's absent
 pose-graph layer — mindvision.launch:21-27 commented out — replaced by
 block-parallel BA):
 
@@ -18,11 +18,10 @@ block-parallel BA):
   * Each outer round, every segment solves its own windowed BA (the same
     shared ``lm_loop`` as the single-chip and feature-sharded solvers; the
     ``f`` axis shards each segment's landmarks exactly like
-    dist/sharding.py — psum'd pose system over ICI) with the two incoming
+    dist/sharding.py — psum'd pose system over ``f``) with the two incoming
     boundary MESSAGES applied as absolute 15-dof Gaussian priors.
   * After each round, segments exchange updated messages with both
-    neighbors over the ``kf`` axis (``ppermute`` — rides DCN on real
-    multi-host meshes): mean = the sender's current estimate of the shared
+    neighbors over the ``kf`` axis (``ppermute``): mean = the sender's current estimate of the shared
     keyframe's (pose, velocity, bias); sqrt-information = the sender-side
     marginal from [its own factors + the message it received from its
     OTHER neighbor] — Gaussian belief propagation on the keyframe chain.
@@ -30,7 +29,9 @@ block-parallel BA):
     of the linearized problem (re-linearized every round); the echo-free
     message rule is what makes the fixed point the joint optimum rather
     than a finite-weight consensus compromise.
-  * A few KB per boundary per round: DCN latency-tolerant by construction.
+  * A few KB per boundary per round: latency-tolerant by construction, so
+    the ``kf`` axis may also span hosts. On one all-to-all NVLink host the
+    device order of the mesh does not matter; the axes follow the algorithm.
 
 Consistency is tested against ONE monolithic lm_solve over the whole
 trajectory (tests/test_kf_axis.py) — the segmented fixed point matches the
@@ -47,17 +48,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
-try:  # jax >= 0.8: top-level shard_map (new-style, no check_rep kwarg)
-    from jax import shard_map as _new_shard_map
-
-    def shard_map(f=None, **kw):  # adapt legacy check_rep= callers
-        if kw.pop("check_rep", None) is False:
-            kw["check_vma"] = False  # the new-style equivalent
-        if f is None:
-            return lambda g: _new_shard_map(g, **kw)
-        return _new_shard_map(f, **kw)
-except ImportError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from ..backend.state import (
     WindowState, FeatureGrid, PriorFactor, SolverConfig, pose_dim, n_cams_of,
@@ -71,8 +62,7 @@ from ..imu import preintegrate_parallel, whiten_covariance
 
 
 def make_kf_mesh(n_kf: int, n_f: int, devices=None):
-    """2-D mesh: ``kf`` (trajectory segments / hosts, DCN) × ``f`` (feature
-    shards / chips, ICI)."""
+    """2-D mesh: ``kf`` (trajectory segments) × ``f`` (feature shards)."""
     devices = devices if devices is not None else jax.devices()
     if len(devices) < n_kf * n_f:
         raise ValueError(
@@ -227,7 +217,7 @@ def segmented_trajectory_solve(
         in_specs=(state_specs, grid_specs, P("kf"), P("kf"), P("kf"),
                   P("kf"), P("kf"), P("kf"), prior_specs),
         out_specs=(state_specs, P("kf"), P("kf"), P("kf")),
-        check_rep=False,
+        check_vma=False,
     )
     def run(st_b, g_b, dts_b, accs_b, gyrs_b, a0_b, g0_b, iv_b, pr_b):
         st = sq0(st_b)
@@ -333,6 +323,9 @@ def segmented_trajectory_solve(
         # the linearized problem; re-linearizing each round makes it the
         # nonlinear block solver.
         eyeW = jnp.eye(15, dtype=dtype)
+        # Cyclic permutations so every rank receives a well-formed message;
+        # the wrap-around edges (rank S-1 -> 0 and 0 -> S-1) carry zero
+        # weight (w_first_m / w_last_m), so the solve is an open chain.
         fwd = [(i, (i + 1) % S) for i in range(S)]
         bwd = [(i, (i - 1) % S) for i in range(S)]
         w_first_m = jnp.where(kf_rank > 0, boundary_weight, 0.0).astype(dtype)
@@ -393,8 +386,8 @@ def segmented_trajectory_solve(
 
             dmu_fwd = capped(jnp.linalg.solve(marg_fwd, gL15))
             dmu_bwd = capped(jnp.linalg.solve(marg_bwd, gF15))
-            # Exchange means + sqrt-infos over the kf axis (DCN on real
-            # meshes): a few KB per boundary per round.
+            # Exchange means + sqrt-infos over the kf axis: a few KB per
+            # boundary per round.
             my_first = _retract15(_kf15(st, 0), dmu_bwd)
             my_last = _retract15(_kf15(st, W1 - 1), dmu_fwd)
             recv_first = jax.tree_util.tree_map(   # prev rank's fwd message

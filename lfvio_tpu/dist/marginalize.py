@@ -11,7 +11,7 @@ factorization applies:
     R-factor rows BELOW its depth block — its depth-eliminated marginal
     contribution over the shared [dropped | kept | r] columns
     ([15+K+1] × [15+K+1], ~120 KB).
-  stage 2 (one all_gather over ICI): stack the n contribution blocks with
+  stage 2 (one all_gather over the mesh): stack the n contribution blocks with
     the (tiny, replicated-once) IMU-interval-0 and prior rows, QR again,
     and read the rows below the dropped block — the marginal square-root
     prior on the kept variables.
@@ -34,17 +34,7 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
-try:  # jax >= 0.8: top-level shard_map (new-style, no check_rep kwarg)
-    from jax import shard_map as _new_shard_map
-
-    def shard_map(f=None, **kw):  # adapt legacy check_rep= callers
-        if kw.pop("check_rep", None) is False:
-            kw["check_vma"] = False  # the new-style equivalent
-        if f is None:
-            return lambda g: _new_shard_map(g, **kw)
-        return _new_shard_map(f, **kw)
-except ImportError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from ..backend.state import (
     WindowState,
@@ -161,7 +151,7 @@ def marginalize_old_qr_sharded(
                   jax.tree_util.tree_map(lambda _: P(), pre0), P(), P(),
                   jax.tree_util.tree_map(lambda _: P(), prior)),
         out_specs=(P(), P(), P()),
-        check_rep=False,
+        check_vma=False,
     )
     def run(s, g, pre_, si_, iv_, pr_):
         return _marg_old_qr_local(

@@ -1,13 +1,13 @@
 """Multi-chip distributed bundle adjustment via jax.sharding + shard_map.
 
-The reference has no distributed runtime (SURVEY.md §2.5); this layer is the
-TPU-native scaling design mandated by the north star: shard the *feature
-slots* (landmarks + their observation grid) across chips. Each device:
+The reference has no distributed runtime (SURVEY.md §2.5); this layer shards
+the *feature slots* (landmarks + their observation grid) across cards. Each
+device:
 
   1. linearizes its feature shard (projection residuals + Jacobians),
   2. assembles local partial normal equations,
   3. `psum`s the tiny pose-block system (H_pp [172², ~118 KB] + b_p) over the
-     ICI ring — the only communication per LM iteration,
+     mesh — the only communication per LM iteration,
   4. solves the reduced 172×172 system redundantly (cheaper than sharding a
      matrix this small), and back-substitutes its local inverse depths.
 
@@ -27,17 +27,7 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
-try:  # jax >= 0.8: top-level shard_map (new-style, no check_rep kwarg)
-    from jax import shard_map as _new_shard_map
-
-    def shard_map(f=None, **kw):  # adapt legacy check_rep= callers
-        if kw.pop("check_rep", None) is False:
-            kw["check_vma"] = False  # the new-style equivalent
-        if f is None:
-            return lambda g: _new_shard_map(g, **kw)
-        return _new_shard_map(f, **kw)
-except ImportError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from ..backend.state import (
     WindowState, FeatureGrid, PriorFactor, SolverConfig, pose_dim, n_cams_of,
@@ -139,7 +129,7 @@ def lm_solve_sharded(
         in_specs=(state_specs, grid_specs, jax.tree_util.tree_map(lambda _: P(), pre),
                   P(), P(), prior_specs),
         out_specs=(state_specs, P(), P()),
-        check_rep=False,
+        check_vma=False,
     )
     def solve(s, g, pre_, si_, iv_, pr_):
         dtype = s.p.dtype

@@ -2,7 +2,7 @@
 
 Shared by tests/test_kf_axis.py (consistency vs a monolithic solve),
 __graft_entry__.dryrun_multichip (2-D kf×f mesh dry run) and
-scaling_bench.py. Exact measurements: smooth closed-form trajectory,
+chip_smoke.py --four. Exact measurements: smooth closed-form trajectory,
 piecewise-constant world acceleration / body rate IMU between keyframes,
 unit bearings of per-segment landmark blocks (tic=0, ric=I), optional
 bearing noise.

@@ -3,16 +3,13 @@
 Equivalent of cv::createCLAHE(3.0, Size(8,8))->apply (reference
 feature_tracker.cpp:101-107).
 
-TPU formulation (round 5): NO per-pixel gathers anywhere. Measured on the
-v5e, a 1.2M-element gather costs ~17 ms (serialized scalar loads), and the
-round-4 implementation did four of them for the bilinear LUT lookup —
-~53 ms/frame, the single largest program in the whole pipeline. Both the
-histogram and the LUT application are instead expressed as one-hot
-contractions on the MXU, nibble-factorized so the one-hot tensors stay
-small: a 256-bin index splits into hi/lo 16-way one-hots, making every
-lookup an exact [16]×[16,16]×[16] bilinear form (~1 GB of HBM traffic
-total, ~2 ms) instead of a gather. Selection by an exact 0/1 one-hot is
-bit-identical to the gather it replaces.
+Formulation: no per-pixel gathers. Both the histogram and the LUT
+application are one-hot contractions (matrix products), nibble-factorized
+so the one-hot tensors stay small: a 256-bin index splits into hi/lo 16-way
+one-hots, making every lookup an exact [16]×[16,16]×[16] bilinear form
+instead of a gather. Selection by an exact 0/1 one-hot is bit-identical to
+the gather it replaces. The gather form is kept as ``_clahe_gather``; which
+of the two is faster on the GPU is open (ROADMAP S3).
 
 The per-pixel bilinear blend over the 4 neighboring tile LUTs becomes a
 static quadrant decomposition: every pixel in a given quadrant of a given
@@ -39,7 +36,7 @@ def clahe(img, clip_limit: float = 3.0, grid: int = 8, n_bins: int = 256):
         # Gather-based fallback for shapes the nibble/quadrant layout cannot
         # tile (odd tile sides or non-256 bins).
         return _clahe_gather(img, clip_limit, grid, n_bins)
-    return _clahe_mxu(img, clip_limit, grid)
+    return _clahe_onehot(img, clip_limit, grid)
 
 
 def _tile_luts(hist, clip_limit, npix, n_bins, dtype):
@@ -53,7 +50,18 @@ def _tile_luts(hist, clip_limit, npix, n_bins, dtype):
     return jnp.clip(lut, 0.0, 255.0)
 
 
-def _clahe_mxu(img, clip_limit: float, grid: int):
+def _tile_frac(n, t, grid, dtype):
+    """Fractional part of the tile coordinate clip(i/t − 0.5, 0, grid−1) of
+    pixels i < n, in exact integer arithmetic. The static quadrant layout
+    fixes which two tiles each pixel blends, so the fraction must not cross
+    an integer through rounding: computed as floor(i/t − 0.5) in floats, a
+    compiler that divides by multiplying with 1/t can land just below a
+    tile centre and blend the wrong pair (seen with jit in f64)."""
+    num = jnp.clip(2 * jnp.arange(n) - t, 0, 2 * t * (grid - 1))  # 2t·coord
+    return (num % (2 * t)).astype(dtype) / (2 * t)
+
+
+def _clahe_onehot(img, clip_limit: float, grid: int):
     n_bins = 256
     H, W = img.shape
     dtype = img.dtype
@@ -68,13 +76,13 @@ def _clahe_mxu(img, clip_limit: float, grid: int):
     )
     nib = jnp.arange(16, dtype=jnp.int32)
 
-    # ---- per-tile histogram on the MXU: hist[t, hi, lo] = oh_hiᵀ·oh_lo.
+    # ---- per-tile histogram as a contraction: hist[t, hi, lo] = oh_hiᵀ·oh_lo.
     bins_t = bins.reshape(grid, th, grid, tw).transpose(0, 2, 1, 3).reshape(
         grid, grid, npix
     )
-    # bf16 one-hots: 0/1 are exact in bf16 and the MXU accumulates in f32,
-    # so the histogram is still exact — at half the HBM traffic (the
-    # one-hot tensors dominate this program's bytes).
+    # bf16 one-hots: 0/1 are exact in bf16 and the product accumulates in
+    # f32, so the histogram is still exact — at half the memory traffic
+    # (the one-hot tensors dominate this program's bytes).
     oh_hi_t = (bins_t[..., None] // 16 == nib).astype(jnp.bfloat16)
     oh_lo_t = (bins_t[..., None] % 16 == nib).astype(jnp.bfloat16)
     hist = jnp.einsum(
@@ -113,11 +121,10 @@ def _clahe_mxu(img, clip_limit: float, grid: int):
 
     # value under each corner LUT: exact one-hot bilinear form
     # V[.., p, c] = Σ_{h,l} oh_hi[p,h] · L[c,h,l] · oh_lo[p,l]
-    # precision=HIGHEST on BOTH application contractions: the default TPU
-    # dot feeds bf16 operands, which rounds the (non-integer) LUT side by
-    # up to 0.5 intensity — measured to cost ~6 cm of e2e ATE through the
-    # KLT's sub-pixel sensitivity (A/B'd on-chip; the cheaper bf16 LUT
-    # path was reverted). Only the histogram (exact 0/1 operands, f32 MXU
+    # precision=HIGHEST on BOTH application contractions: a reduced-precision
+    # dot (bf16 or TF32 operands) rounds the non-integer LUT side by up to
+    # 0.5 intensity, which the KLT's sub-pixel sensitivity turns into
+    # trajectory error. Only the histogram (exact 0/1 operands, f32
     # accumulation) rides bf16.
     hp = jax.lax.Precision.HIGHEST
     T = jnp.einsum("ijabph,ijabhm->ijabpm", oh_hi_q, L2h, precision=hp)
@@ -127,10 +134,8 @@ def _clahe_mxu(img, clip_limit: float, grid: int):
     )  # [..,P,4]
 
     # ---- bilinear weights (position-only, no gathers).
-    gy = jnp.clip(jnp.arange(H, dtype=dtype) / th - 0.5, 0.0, grid - 1.0)
-    gx = jnp.clip(jnp.arange(W, dtype=dtype) / tw - 0.5, 0.0, grid - 1.0)
-    fy = (gy - jnp.floor(gy)).reshape(grid, 2, th2)
-    fx = (gx - jnp.floor(gx)).reshape(grid, 2, tw2)
+    fy = _tile_frac(H, th, grid, dtype).reshape(grid, 2, th2)
+    fx = _tile_frac(W, tw, grid, dtype).reshape(grid, 2, tw2)
     fy_b = fy[:, None, :, None, :, None]  # [g,1,2,1,th2,1]
     fx_b = fx[None, :, None, :, None, :]  # [1,g,1,2,1,tw2]
     w = jnp.stack(
@@ -154,8 +159,8 @@ def _clahe_mxu(img, clip_limit: float, grid: int):
 
 
 def _clahe_gather(img, clip_limit: float, grid: int, n_bins: int):
-    """Round-4 formulation (per-pixel LUT gathers) — correct everywhere but
-    gather-bound on TPU; used only for shapes the MXU path cannot tile."""
+    """Per-pixel LUT gather formulation — correct everywhere; used for
+    shapes the one-hot path cannot tile."""
     H, W = img.shape
     dtype = img.dtype
     th, tw = H // grid, W // grid

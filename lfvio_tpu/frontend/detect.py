@@ -4,10 +4,10 @@ Equivalent of the reference's detect path (feature_tracker.cpp:46-83,166):
 cv::goodFeaturesToTrack(maxCorners, qualityLevel=0.01, minDistance=MIN_DIST,
 mask) where mask = PAL annulus minus disks stamped around surviving tracks.
 
-TPU formulation: dense min-eigenvalue response map via convolutions, masking
-via a dilated occupancy map (reduce_window max — a square structuring element
-instead of the reference's stamped circles, slightly stricter in the
-corners), 3×3 local-max NMS, then one top-k over the masked response.
+Formulation: dense min-eigenvalue response map via banded-matrix stencils,
+masking via a dilated occupancy map (a square structuring element instead of
+the reference's stamped circles, slightly stricter in the corners), 3×3
+local-max NMS, then one exact top-k over the masked response.
 """
 
 from __future__ import annotations
@@ -20,10 +20,9 @@ import numpy as np
 def shi_tomasi_response(img, block_size: int = 3):
     """Min-eigenvalue corner response (cv::goodFeaturesToTrack's score).
 
-    Stencils are banded MXU matmuls (see pyramid._banded): Sobel is
+    Stencils are banded-matrix products (see pyramid._banded): Sobel is
     separable smooth[1,2,1] ∘ diff[-1,0,1], the box sum is two 3-tap
-    passes. All edge-replicated, matching the shifted-add formulation this
-    replaces (which paid ~2.7 ms/pass in materialized pad copies)."""
+    passes. All edge-replicated."""
     from .pyramid import _banded, _sep_mm
 
     H, W = img.shape
@@ -60,22 +59,37 @@ def annulus_mask(shape, center_x, center_y, max_r, min_r, dtype=jnp.float32):
 
 def occupancy_dilated(shape, pts, valid, min_dist: int):
     """Boolean map that is True within a (2*min_dist+1) square around any
-    valid point — the 'too close to an existing track' exclusion zone."""
+    valid point — the 'too close to an existing track' exclusion zone.
+
+    Separable: excl[y, x] = Σ_n rows[n, y]·cols[n, x] > 0 with 0/1 operands,
+    exact at any matrix-product precision (TF32 and bf16 hold 0/1, and the
+    f32 sum counts points exactly). A window-max scan over the image gives
+    the same map, but with a constant point set (the first frame) the
+    compiler folds that scan pixel by pixel at compile time."""
     H, W = shape
-    occ = jnp.zeros((H, W), jnp.float32)
     iy = jnp.clip(jnp.round(pts[:, 1]).astype(jnp.int32), 0, H - 1)
     ix = jnp.clip(jnp.round(pts[:, 0]).astype(jnp.int32), 0, W - 1)
-    occ = occ.at[iy, ix].max(valid.astype(jnp.float32))
-    k = 2 * min_dist + 1
-    # Separable two-pass max: identical result to a k×k window, but the 1-D
-    # reduce_windows compile ~3x faster on Mosaic than the 2-D one.
-    dil = jax.lax.reduce_window(
-        occ, -jnp.inf, jax.lax.max, (k, 1), (1, 1), "SAME"
+    rows = (jnp.abs(jnp.arange(H)[None, :] - iy[:, None]) <= min_dist) \
+        & valid[:, None]
+    cols = jnp.abs(jnp.arange(W)[None, :] - ix[:, None]) <= min_dist
+    hits = jnp.einsum(
+        "ny,nx->yx", rows.astype(jnp.float32), cols.astype(jnp.float32),
+        preferred_element_type=jnp.float32,
     )
-    dil = jax.lax.reduce_window(
-        dil, -jnp.inf, jax.lax.max, (1, k), (1, 1), "SAME"
+    return hits > 0.5
+
+
+def top_k_exact(x, k: int):
+    """``lax.top_k`` of a 1-D array — values descending, ties by lower
+    index — as one stable sort. On the GPU, XLA's TopK (and approx_max_k,
+    which lowers to the same exact top-k off the TPU) does not compile at a
+    1.2 M-pixel response map: host memory runs away in the compiler. The
+    sort compiles at once."""
+    neg, idx = jax.lax.sort(
+        (-x, jnp.arange(x.shape[0], dtype=jnp.int32)), num_keys=1,
+        is_stable=True,
     )
-    return dil > 0.5
+    return -neg[:k], idx[:k]
 
 
 def select_features(
@@ -111,18 +125,14 @@ def select_features(
 
     # Oversample candidates, then enforce min_dist among them. The greedy
     # stamping of the reference (strongest-first, suppress a disk) is a
-    # sequential dependence; a length-800 lax.scan costs ~60 ms/frame on the
-    # chip. Equivalent fixpoint formulation, fully vectorized: a candidate
-    # survives iff no STRONGER SURVIVOR lies within min_dist. The dependency
+    # sequential dependence (a length-800 lax.scan). Equivalent fixpoint
+    # formulation, fully vectorized: a candidate survives iff no STRONGER
+    # SURVIVOR lies within min_dist. The dependency
     # graph is a DAG in strength order, so iterating the suppression a fixed
     # few times resolves chains (depth doubles per sweep); real corner fields
     # settle in 2-3 sweeps.
     n_cand = min(4 * n_new, H * W)
-    # approx_max_k is the TPU-native ApproxTopK: ~5x faster to compile and
-    # run than exact top_k at this size; the ~0.95 recall only affects
-    # which of the weakest oversampled candidates appear, not selection
-    # quality. (On CPU it falls back to an exact top-k.)
-    vals, idx = jax.lax.approx_max_k(resp.reshape(-1), n_cand)
+    vals, idx = top_k_exact(resp.reshape(-1), n_cand)
     cy = (idx // W).astype(jnp.float32)
     cx = (idx % W).astype(jnp.float32)
     cand_ok = vals > 0.0

@@ -5,16 +5,13 @@ Replaces cv::calcOpticalFlowPyrLK (reference feature_tracker.cpp:127 —
 all N feature tracks advance together through a fixed iteration schedule, so
 the whole tracker is one XLA computation.
 
-Design notes (TPU):
+Design notes:
   * Patch extraction once per (feature, level): one vmapped dynamic_slice
     per patch — the only gathers in the tracker.
   * In-iteration bilinear resampling NEVER gathers: both axes are banded
     shift-matrix contractions (built from iota comparisons) batched over all
-    N features — two MXU batched matmuls per Gauss-Newton iteration for the
-    whole feature set. A per-feature formulation (vmapped dynamic slices, or
-    a Pallas kernel looping features sequentially — see klt_pallas.py) runs
-    the MXU at a few percent utilization; batching over features is worth
-    ~10× on a v5e.
+    N features — two batched matrix products per Gauss-Newton iteration
+    for the whole feature set, instead of a per-feature loop.
   * Fixed iteration counts with convergence masking (no data-dependent
     control flow).
 """

@@ -4,10 +4,9 @@ Equivalent of the pyramid OpenCV builds inside calcOpticalFlowPyrLK
 (reference call: feature_tracker.cpp:127, 3 levels): 5×5 Gaussian smoothing
 followed by 2× decimation.
 
-TPU note: XLA's conv op with a single channel lowers poorly on TPU (the MXU
-wants ≥128 channels), so small stencils are expressed as shifted adds on the
-VPU — a 5-tap separable blur is 10 shifted fused-multiply-adds over the
-image, pure bandwidth (~10 × 5 MB per frame), instead of a degenerate conv.
+Separable stencils are expressed as products with banded filter matrices
+(``_banded``), not single-channel convolutions; whether a separable
+convolution or shifted-add form is faster on the GPU is open (ROADMAP S3).
 """
 
 from __future__ import annotations
@@ -54,12 +53,9 @@ def _banded(n_out, n_in, taps, radius, stride=1):
     out[j] = Σ_t taps[t] · in[clip(stride·j + t − radius, 0, n_in−1)].
 
     Built at TRACE time and embedded as an executable constant, so a
-    separable stencil becomes two MXU matmuls. Measured on the v5e, the
-    shifted-add formulation (pad+slice per tap) costs ~2.7 ms per 1.2M-px
-    pass — XLA materializes every edge-padded copy — while the banded
-    matmul runs at MXU rates (~0.1 ms); decimation folds into the matrix
-    (stride) for free. Edge replication = index clipping with duplicate
-    taps accumulating."""
+    separable stencil becomes two matrix products; decimation folds into
+    the matrix (stride) for free. Edge replication = index clipping with
+    duplicate taps accumulating."""
     B = np.zeros((n_out, n_in), np.float64)
     j = np.arange(n_out)
     for t, w in enumerate(taps):
@@ -69,8 +65,9 @@ def _banded(n_out, n_in, taps, radius, stride=1):
 
 
 def _sep_mm(img, row_mat, col_mat):
-    """out = row_mat @ img @ col_matᵀ at HIGHEST precision (the default TPU
-    dot feeds bf16 operands; image values up to 255 would round by ~1)."""
+    """out = row_mat @ img @ col_matᵀ at HIGHEST precision (a reduced-
+    precision dot, bf16 or TF32 operands, would round image values up to
+    255 by ~1 or ~0.1)."""
     hp = jax.lax.Precision.HIGHEST
     dt = img.dtype
     a = jnp.asarray(row_mat.astype(np.dtype(jnp.dtype(dt).name)))

@@ -6,7 +6,7 @@ check_inliers (feature_tracker.cpp:186-327): 8-point essential matrix on
 threshold sin(0.5°) = 0.00872653549837, 100 hypotheses, best-score selection,
 final refit on inliers.
 
-TPU formulation: all 100 hypotheses are solved simultaneously — the
+Formulation: all 100 hypotheses are solved simultaneously — the
 minimal-set solves are a batched 9×9 symmetric eigendecomposition of AᵀA
 (the null space of the stacked constraints), and scoring is one [100, N]
 broadcast. No per-hypothesis loop, no host round trips.

@@ -2,8 +2,8 @@
 
 The estimator driver, feature bookkeeping, and initialization run on the
 host between jitted device steps. Calling the jnp-based helpers there would
-dispatch a remote device op per quaternion multiply (catastrophic over a
-networked TPU); these numpy twins keep host math on the host. Semantics are
+dispatch a device op per quaternion multiply; these numpy twins keep host
+math on the host. Semantics are
 identical to geom.rotations (same wxyz convention); parity is tested.
 """
 

@@ -12,7 +12,7 @@ so that downstream factor/initializer semantics agree:
     reference does for its yaw-gauge fixing.
 
 All functions broadcast over leading batch dimensions and preserve input
-dtype, so the same code runs f32 on TPU and f64 on host/CPU tests.
+dtype, so the same code runs f32 on the accelerator and f64 in CPU tests.
 """
 
 from __future__ import annotations

@@ -7,7 +7,7 @@ midpoint integration of (Δp, Δq, Δv) between two camera frames, a 15×15
 Jacobian w.r.t. [p, θ, v, ba, bg] propagated as J ← F·J, and covariance
 P ← F·P·Fᵀ + V·N·Vᵀ with an 18×18 diagonal input noise.
 
-TPU-native differences from the reference:
+Differences from the reference:
   * One ``jax.lax.scan`` over a fixed-size padded sample buffer replaces the
     per-sample ``push_back``/``propagate`` calls; padding samples use dt=0,
     which is an exact no-op of the recursion (F=I, V=0).
@@ -248,7 +248,7 @@ def preintegrate_parallel(dts, accs, gyrs, acc0, gyr0, ba, bg, noise: ImuNoise):
     """Depth-parallel preintegration: identical semantics to ``preintegrate``
     but O(log N) sequential depth instead of the 256-step ``lax.scan``.
 
-    TPU-first restructuring of integration_base.h's inherently sequential
+    Restructuring of integration_base.h's inherently sequential
     push_back/propagate recursion:
 
       1. The per-step local rotations r_k = exp((½(ω_{k-1}+ω_k) − bg)·dt)
@@ -260,7 +260,7 @@ def preintegrate_parallel(dts, accs, gyrs, acc0, gyr0, ba, bg, noise: ImuNoise):
       3. J_N = F_N···F_1 and P_N = Σ (F_N···F_{k+1}) Q_k (·)ᵀ are one
          associative reduction over pairs (F, Q) with the combiner
          (F_b, Q_b)∘(F_a, Q_a) = (F_b F_a, F_b Q_a F_bᵀ + Q_b) — batched
-         15×15 matmuls at log₂ N depth on the MXU.
+         15×15 matmuls at log₂ N depth.
 
     Zero-padded samples (dt = 0) remain an exact no-op (F = I, Q = 0,
     r = identity). Numerics differ from the sequential path only by the

@@ -7,7 +7,7 @@ estimator's odometry pose — a fidelity demo of the projection model on
 large-FoV cameras, where straight world edges become strongly curved image
 curves.
 
-TPU-first design: the projection of all sampled edge points is one batched
+Design: the projection of all sampled edge points is one batched
 ``space_to_plane`` call (the reference projects point-by-point per marker);
 rasterization of the projected polylines is a host-side numpy loop (output
 imagery is a host artifact, like the reference's cv::line drawing).

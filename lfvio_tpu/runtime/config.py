@@ -1,6 +1,6 @@
 """Full rig-configuration ingestion: ONE YAML file → the whole pipeline.
 
-TPU-side equivalent of the reference's two config loaders
+Equivalent of the reference's two config loaders
 (/root/reference/vins_estimator/src/parameters.cpp:42-139 and
 /root/reference/feature_tracker/src/parameters.cpp:43-84): a single
 OpenCV-FileStorage YAML carries the camera intrinsics, IMU noise, annulus

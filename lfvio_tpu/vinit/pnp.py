@@ -4,7 +4,7 @@ The reference uses an EPnP variant rewritten for unit bearings with a sign
 channel so points on the negative half-plane resolve correctly
 (/root/reference/vins_estimator/src/pnp_solver.cpp:246-254,306-440). Every
 call site supplies a good initial pose (the neighboring frame), so the
-TPU-native build replaces EPnP's control-point algebra with a damped
+batched build replaces EPnP's control-point algebra with a damped
 Gauss-Newton on the tangent-plane bearing residual — simpler, uses the full
 sphere natively, and converges in a handful of iterations from those inits.
 

@@ -1,5 +1,5 @@
 """Child process for the f32 e2e test: runs the bearing-level VIO pipeline
-at the REAL TPU operating point (f32 solver, x64 disabled — the bench
+at the accelerator operating point (f32 solver, x64 disabled — the bench
 configuration) and prints one JSON line with the ATE. Run by
 tests/test_f32.py in a subprocess because x64 is a process-global flag the
 CPU-mesh conftest turns on."""
@@ -7,8 +7,11 @@ CPU-mesh conftest turns on."""
 import json
 import sys
 
-sys.path.insert(0, "/root/repo")
-sys.path.insert(0, "/root/repo/tests")
+import pathlib
+
+TESTS = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(TESTS.parent))
+sys.path.insert(0, str(TESTS))
 
 import jax
 

@@ -1,5 +1,5 @@
 """f32 operating-point validation (SURVEY §7 hard part #1): the estimator
-must hold VIO-grade accuracy at the TPU's native precision — f32 solver,
+must hold VIO-grade accuracy at the accelerator operating point — f32 solver,
 x64 OFF — not only in the f64 configuration the CPU-mesh suite uses.
 
 The f32 run happens in a subprocess (x64 is process-global); the f64
@@ -41,7 +41,7 @@ def test_f32_e2e_ate_matches_f64():
     child = os.path.join(os.path.dirname(__file__), "_f32_e2e_child.py")
     out = subprocess.run(
         [sys.executable, child], env=env, capture_output=True, text=True,
-        timeout=540, cwd="/root/repo",
+        timeout=540, cwd=os.path.dirname(os.path.dirname(child)),
     )
     assert out.returncode == 0, out.stderr[-2000:]
     result = json.loads(out.stdout.strip().splitlines()[-1])

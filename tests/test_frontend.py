@@ -175,3 +175,42 @@ def test_spherical_ransac_rejects_outliers():
     # All kept matches must be true inliers; most true inliers kept.
     assert (inl & is_out).sum() <= 2, (inl & is_out).sum()
     assert inl[~is_out].mean() > 0.9, inl[~is_out].mean()
+
+
+def test_exclusion_zone_equals_window_max_reference():
+    """occupancy_dilated (separable 0/1 product) against the plain
+    definition: max of the point-occupancy map over a (2·min_dist+1)²
+    window, points rounded and clipped into the image."""
+    from lfvio_tpu.frontend.detect import occupancy_dilated
+
+    rng = np.random.default_rng(0)
+    for t in range(6):
+        H, W = 60 + 7 * t, 90 - 5 * t
+        n = int(rng.integers(1, 40))
+        pts = rng.uniform(-8, [W + 8, H + 8], (n, 2))
+        valid = rng.random(n) < 0.7
+        md = int(rng.integers(1, 15))
+        iy = np.clip(np.round(pts[:, 1]).astype(int), 0, H - 1)
+        ix = np.clip(np.round(pts[:, 0]).astype(int), 0, W - 1)
+        yy, xx = np.mgrid[0:H, 0:W]
+        ref = np.zeros((H, W), bool)
+        for y, x in zip(iy[valid], ix[valid]):
+            ref |= (np.abs(yy - y) <= md) & (np.abs(xx - x) <= md)
+        got = occupancy_dilated((H, W), jnp.asarray(pts), jnp.asarray(valid), md)
+        np.testing.assert_array_equal(np.asarray(got), ref)
+
+
+def test_top_k_exact_matches_lax_top_k():
+    """The sort-based top-k equals lax.top_k, ties included (lower index
+    first), on a sparse map like the masked corner response."""
+    from lfvio_tpu.frontend.detect import top_k_exact
+
+    rng = np.random.default_rng(1)
+    x = rng.random(5000).astype(np.float32)
+    x[x < 0.8] = 0.0
+    x[::97] = 0.5  # exact ties among positive values
+    for k in (1, 64, 800):
+        got = top_k_exact(jnp.asarray(x), k)
+        ref = jax.lax.top_k(jnp.asarray(x), k)
+        np.testing.assert_array_equal(np.asarray(got[0]), np.asarray(ref[0]))
+        np.testing.assert_array_equal(np.asarray(got[1]), np.asarray(ref[1]))
